@@ -1,6 +1,6 @@
-"""leon_tpu — a TPU-native, reference-free FASTA/FASTQ compressor.
+"""leon_tpu — an accelerator-native, reference-free FASTA/FASTQ compressor.
 
-A from-scratch JAX/XLA/Pallas re-design of the Leon algorithm
+A from-scratch JAX/XLA re-design of the Leon algorithm
 (reference: GATB/leon, /root/reference/README.md:9-15 — probabilistic
 de Bruijn graph in a Bloom filter, reads encoded as anchor + bifurcation
 lists). See SURVEY.md for the structural analysis and FORMAT.md for the
@@ -11,7 +11,7 @@ Package layout:
   models/   entropy-coding models (order-0 tables, rANS)
   codecs/   stream codecs: entropy framing, headers, qualities
   io/       banks (FASTA/FASTQ/gz parse+write) and the container format
-  parallel/ multi-chip sharding (mesh pipeline, OR-allreduce)
+  parallel/ multi-device sharding (mesh pipeline, multi-process runs)
   utils/    varints, bit packing, stats
 """
 

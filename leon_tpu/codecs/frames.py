@@ -3,7 +3,7 @@
 Every container stream is `method u8 | varint rawlen | varint paylen |
 payload` — self-delimiting, so block payloads are simple concatenations.
 Method is chosen per stream at encode time (smallest wins); the decoder
-dispatches on the byte. rANS (method 2) is the TPU-friendly entropy backend
+dispatches on the byte. rANS (method 2) is the parallel-decode entropy backend
 replacing the reference's serial adaptive range coder ([R] gatb-core
 tools/compression/RangeCoder.{hpp,cpp}) — parallel decode,
 ratio-competitive with order-0 adaptive coding on Leon's short streams.

@@ -1,6 +1,6 @@
 """Static order-0 interleaved rANS (FORMAT.md §7 method 2).
 
-The TPU-native replacement for the reference's serial adaptive range coder
+The replacement for the reference's serial adaptive range coder
 ([R] gatb-core tools/compression/RangeCoder.{hpp,cpp}): static per-stream
 frequency tables (two-pass) + 4-way lane interleave. The hot loops live in
 C++ (leon_tpu/native/leon_native.cpp); this module is the ctypes shim.

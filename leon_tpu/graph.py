@@ -3,12 +3,12 @@
 The reference ships a full Graph façade ([R] gatb-core debruijn/impl/*:
 Node/Edge iteration, successors, traversal; SURVEY.md §2.3) even though
 Leon itself bypasses it and probes the Bloom filter directly. This module
-is the TPU-native equivalent: every query is BATCHED over (N, ...) k-mer
+is the batched equivalent: every query is BATCHED over (N, ...) k-mer
 arrays and runs on device — nodes are not objects but rows. Node->index
 maps (the reference uses a BooPHF MPHF) are served by `searchsorted` over
-the sorted solid-kmer array instead — sorted arrays are the TPU-idiomatic
-perfect-hash substitute (binary search vectorizes; an MPHF's random
-gathers would not beat it on this hardware).
+the sorted solid-kmer array instead — sorted arrays are the data-parallel
+perfect-hash substitute (binary search vectorizes; an MPHF's dependent
+random gathers do not).
 """
 
 from __future__ import annotations
@@ -124,7 +124,7 @@ class DBG:
 
     def traverse(self, kmers, max_steps: int, bubble_depth: int | None = None):
         """Branch-CROSSING traversal, batched over N start nodes — the
-        TPU analog of the reference's contig Traversal ([R] gatb-core
+        batched analog of the reference's contig Traversal ([R] gatb-core
         debruijn/impl/Traversal.cpp MonumentTraversal; SURVEY.md §2.3):
         `walk` stops at every bifurcation, `traverse` additionally crosses
         bounded bubbles/tips.

@@ -1,6 +1,6 @@
 """I/O layer: sequence banks (FASTA/FASTQ/gz) and the .leon container.
 
-TPU-native re-design of the reference's L2 data plane ([R] gatb-core
+Device-oriented re-design of the reference's L2 data plane ([R] gatb-core
 bank/impl/* and tools/storage/impl/*; SURVEY.md §2.3): IBank iterators
 become block-structured host parsers feeding fixed-shape device batches,
 and the HDF5 Storage container becomes the flat sectioned format of

@@ -1,6 +1,6 @@
 """The .leon single-file container (FORMAT.md, normative).
 
-TPU-native replacement of the reference's HDF5 Storage layer ([R] gatb-core
+Replacement of the reference's HDF5 Storage layer ([R] gatb-core
 tools/storage/impl/*; /root/reference/README.md:88 "compressed file in single
 .leon file (HDF5 format)"). Same role — one file holding metadata, the Bloom
 filter, the anchor dictionary and independently decodable blocks — but a flat

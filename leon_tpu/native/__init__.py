@@ -1,9 +1,11 @@
 """Native (C++) host kernels, built on demand with g++ and loaded via ctypes.
 
 The compiled .so is keyed by a hash of the source so edits trigger a
-rebuild; compilation happens once per source version (~1 s). If no
-toolchain is available the callers degrade gracefully (rANS framing falls
-back to zlib).
+rebuild; compilation happens once per source version (~1 s). Several processes
+may build at once (multi-process runs): each compiles to its own temp
+file and renames it into place atomically. If no toolchain is available
+the callers degrade (rANS framing falls back to zlib), so entry points that
+measure or check (chip_smoke.py) require get_lib() to succeed.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ def _build_and_load() -> ctypes.CDLL | None:
         tag = hashlib.sha256(f.read()).hexdigest()[:16]
     so = os.path.join(_DIR, f"_leon_native_{tag}.so")
     if not os.path.exists(so):
-        tmp = so + ".tmp"
+        tmp = f"{so}.{os.getpid()}.tmp"  # private to this process
         base = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
                 "-std=c++17", _SRC, "-o", tmp]
         try:  # OpenMP first (parallel unitig successor search); plain next

@@ -1,6 +1,6 @@
 // leon_native: host-side native kernels for leon_tpu.
 //
-// TPU-native framework rule: the JAX/XLA/Pallas path owns device compute;
+// Framework rule: the JAX/XLA path owns device compute;
 // the serial host work that the reference implements in C++ gets C++ here
 // too. This file provides the entropy backend replacing the reference's
 // adaptive range coder ([R] gatb-core tools/compression/RangeCoder.{hpp,cpp};
@@ -660,8 +660,8 @@ int64_t leon_hdr_decode(const uint8_t* modes, int64_t n,
 // Sorted-run k-way merge: the count-finalize hot path at chr scale.
 //
 // The slab counter spills compacted (distinct kmer, count) runs to host RAM
-// once they exceed the HBM budget (ops/count.py DeviceCounter._spill_run) —
-// the TPU analog of DSK's temp disk partitions ([R] gatb-core
+// once they exceed the device-memory budget (ops/count.py
+// DeviceCounter._spill_run) — the analog of DSK's temp disk partitions ([R] gatb-core
 // kmer/impl/SortingCountAlgorithm, SURVEY.md §3.4). Merging those runs with
 // a global np.lexsort + np.add.at measured as the dominant count.finalize
 // cost (~200 s at 340M distinct rows); the runs are each sorted, so a

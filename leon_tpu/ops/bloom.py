@@ -2,7 +2,7 @@
 graph (reference behavior: /root/reference/README.md:13 "inserts solid kmers
 in a bloom-filter"; [R] gatb-core tools/collections/impl/Bloom.hpp).
 
-TPU-first: the bitset is a flat uint32 array resident in HBM; membership is
+The bitset is a flat uint32 array resident in device memory; membership is
 ONE gathered word load + mask test, batched over lanes. Hash family v4
 (FORMAT.md §4) is an ntHash-style 32-bit ROLLING family: during the graph
 walk each of the 4 successor candidates costs a couple of XOR/rotates
@@ -12,8 +12,8 @@ canonical big-int compare on the hot path. v4 carries a SINGLE rolling
 chain per strand (v2/v3 carried two independent families): the two hash
 coordinates the blocked addressing needs (word index, bit positions) come
 from min(f, r) and max(f, r), which jointly preserve the full 64 bits of
-the strand pair — measured ~35% off the fused-walk scan body, whose
-per-step hash updates were half its VPU work. Decoder determinism depends
+the strand pair — half the per-step hash updates of the fused-walk scan
+body. Decoder determinism depends
 on the numpy and jnp paths being bit-identical; both are implemented here
 from the same table constants.
 """
@@ -163,10 +163,10 @@ def mulhi32(a, b, xp):
 def wordmask_from_hashes(f, r, n_hashes: int, n_words: int, xp):
     """BLOCKED Bloom addressing (hash family v4, FORMAT.md §4): all H bits
     of a key live in ONE u32 bitset word, so membership is a single
-    gathered word + mask test. On TPU the walk is gather-bound (4
-    candidates x H hashes x every step, random HBM access); blocking cuts
-    the gather count H-fold for a modest false-positive penalty (~2-3x at
-    12 bits/kmer, still <1.5%).
+    gathered word + mask test. The walk probes 4 candidates x H hashes at
+    every step (random device-memory access); blocking cuts the gather
+    count H-fold for a modest false-positive penalty (~2-3x at 12
+    bits/kmer, still <1.5%).
 
     Both coordinates derive from the strand-invariant unordered pair
     (lo, hi) = (min(f, r), max(f, r)) of the ONE rolling chain:

@@ -1,8 +1,8 @@
 """Multi-chip / multi-host parallel layer.
 
 The reference is single-process multicore (SURVEY.md §2.4: GATB Dispatcher
-threads + disk partitions; no MPI/NCCL anywhere). The TPU-native scaling
-story replaces that with a 1-D device mesh:
+threads + disk partitions; no MPI/NCCL anywhere). The scaling story here
+replaces that with a flat 1-D device mesh:
 
 - data parallel: read batches sharded over mesh axis "d" (the analog of
   Dispatcher blocks, /root/reference/README.md:47-48 -nb-cores)
@@ -10,6 +10,6 @@ story replaces that with a 1-D device mesh:
   (multi-host: process allgather over DCN — the analog of DSK's disk
   partition exchange)
 - Bloom build: solid-kmer list sharded over devices, per-device bit
-  scatter, OR-allreduce via pmax on 0/1 bytes, replicated bitset in HBM
+  scatter, all-to-all word-range OR, replicated bitset in device memory
 - encode: embarrassingly parallel over lanes with the replicated bitset
 """

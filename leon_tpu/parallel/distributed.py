@@ -1,7 +1,7 @@
 """Multi-host distributed compression (`jax.distributed`).
 
 The reference's only scaling axis is threads on one node (SURVEY.md §2.4);
-the TPU-native design scales across hosts with process-level data
+this design scales across hosts with process-level data
 parallelism over container blocks:
 
 1. every process PARSES ONLY ITS SHARD: a cooperative byte-range block
@@ -52,7 +52,15 @@ from leon_tpu.ops import kmer as K
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """Wrapper over jax.distributed.initialize (no-op if single process)."""
+    """Wrapper over jax.distributed.initialize (no-op if single process).
+
+    One process per card: start each process with its own GPU pinned by
+    CUDA_VISIBLE_DEVICES=<i> (or pass local_device_ids to
+    jax.distributed.initialize), because a JAX process reserves most of
+    the memory of every card it can see. Nothing tells JAX of the
+    cluster, so coordinator_address ("localhost:<port>" on one host),
+    num_processes and process_id are all required. chip_smoke.py
+    --multi-gpu runs four such processes on one host."""
     import jax
 
     if num_processes is None or num_processes <= 1:
@@ -373,8 +381,7 @@ def _sharded_count_merge(uniq: np.ndarray, cnts: np.ndarray, cfg: LeonConfig,
     solid_mine = np.ascontiguousarray(my_uniq[solid_m])
     counts_mine = np.minimum(my_cnts[solid_m], np.iinfo(np.int32).max).astype(np.int32)
     bitset = bloom.build_np(solid_mine, n_words, H, seed, k)
-    # OR-combine the disjoint range bitsets (chunked allgather; on real
-    # multi-host TPU hardware this would be a psum/OR over ICI)
+    # OR-combine the disjoint range bitsets (chunked allgather)
     for i, blob in enumerate(_allgather_bytes(bitset.tobytes())):
         if i != pid:
             bitset |= np.frombuffer(blob, dtype=np.uint32)

@@ -4,8 +4,9 @@ data-parallel walk encoding.
 Design per SURVEY.md §2.4: the only runtime parallelism in the reference is
 data-parallel read blocks over threads; here the mesh axis "d" plays that
 role across chips, and the Bloom filter (the shared read-only structure the
-reference keeps in shared memory) is replicated in each chip's HBM, built
-collectively with an OR-allreduce (pmax over 0/1 bytes == bitwise OR).
+reference keeps in shared memory) is replicated in each device's memory,
+built collectively: per-device partial filters, an all-to-all word-range
+exchange and a local OR.
 """
 
 from __future__ import annotations

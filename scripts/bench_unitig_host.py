@@ -4,12 +4,12 @@ point (VERDICT r3 weak #3): synthetic genome-like solid sets at 8M / 36M
 byte-identity spot check near the device gate (8M).
 
 The host builder runs in a thread overlapped with the encode stage for
-solid sets above config.unitig_device_max_kmers (the XLA compile-service
-cliff); its wall-clock at 36M rows decides whether the chr-scale UNITIGS
-section is free or delays the tail.
+solid sets above config.unitig_device_max_kmers; its wall-clock at 36M
+rows decides whether the chr-scale UNITIGS section is free or delays the
+tail.
 
 Usage: python scripts/bench_unitig_host.py [--sizes 8,36] [--device-check]
-Writes UNITIG_BENCH.json at the repo root.
+Prints one JSON line per size (host wall-clock and peak RSS).
 """
 import argparse
 import json
@@ -76,7 +76,6 @@ def main() -> int:
 
     from leon_tpu.ops import unitig
 
-    results = []
     for mm in [int(x) for x in a.sizes.split(",")]:
         n = mm << 20
         t0 = time.time()
@@ -93,14 +92,10 @@ def main() -> int:
             "peak_rss_gb": round(peak_rss_kb() / 1e6, 2),
         }
         print(json.dumps(row), flush=True)
-        results.append(row)
         del uniq, counts, payload
 
     if a.device_check:
         # np-vs-device byte identity at the 8M gate boundary
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
         from leon_tpu.ops import unitig as U
 
         uniq, counts = synth_solid(1 << 20, a.k, seed=7)
@@ -111,12 +106,7 @@ def main() -> int:
         same = pn == pd
         print(json.dumps({"device_check_rows": int(uniq.shape[0]),
                           "byte_identical": bool(same)}), flush=True)
-        results.append({"device_check_byte_identical": bool(same)})
 
-    out = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "UNITIG_BENCH.json")
-    with open(out, "w") as f:
-        json.dump(results, f, indent=1)
     return 0
 
 

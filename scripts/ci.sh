@@ -10,9 +10,7 @@ set -euo pipefail
 cd "$(dirname "$0")/.."
 
 echo "== [1/4] native build (g++ host kernels)"
-python - <<'EOF'
-import os
-os.environ.setdefault("LEON_FORCE_CPU", "1")
+JAX_PLATFORMS=cpu python - <<'EOF'
 from leon_tpu.native import get_lib
 lib = get_lib()
 assert lib is not None, "native toolchain build failed"
@@ -22,8 +20,7 @@ EOF
 echo "== [2/4] functional round-trip (reference oracle: simple_test.sh)"
 tmp=$(mktemp -d)
 trap 'rm -rf "$tmp"' EXIT
-cp /root/reference/data/toy.fasta "$tmp/toy.fasta" 2>/dev/null || \
-  python - "$tmp/toy.fasta" <<'EOF'
+python - "$tmp/toy.fasta" <<'EOF'
 import sys, numpy as np
 rng = np.random.default_rng(7)
 B = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -33,13 +30,13 @@ with open(sys.argv[1], "wb") as f:
         s = int(rng.integers(0, 4900))
         f.write(b">read%d\n%s\n" % (i, B[contig[s:s+100]].tobytes()))
 EOF
-LEON_FORCE_CPU=1 python -m leon_tpu.cli -file "$tmp/toy.fasta" -c -test-file -verbose 0
+JAX_PLATFORMS=cpu python -m leon_tpu.cli -file "$tmp/toy.fasta" -c -test-file -verbose 0
 
 echo "== [3/4] test suite"
 if [[ "${1:-}" == "--fast" ]]; then
-  python -m pytest tests/test_roundtrip.py -x -q
+  JAX_PLATFORMS=cpu python -m pytest tests/test_roundtrip.py -x -q
 else
-  python -m pytest tests/ -x -q
+  JAX_PLATFORMS=cpu python -m pytest tests/ -x -q
 fi
 
 echo "== [4/4] package"

@@ -5,10 +5,11 @@
    reconstruction contract, io/bank.py).
 2. 1M-read long-tail length-model FASTQ, -lossless: byte-exact.
 
-Appends results under "paired_album" / "longtail" in
-BASELINE_RESULTS.json.
+Prints one JSON line per run. Inputs are generated from a seed into
+--out (default: .bench_data/paired in the checkout, git-ignored).
+JAX_PLATFORMS=cpu runs it on the CPU backend.
 
-Usage: python scripts/run_paired_oracle.py [--pairs N] [--reads N] [--cpu]
+Usage: python scripts/run_paired_oracle.py [--pairs N] [--reads N]
 """
 from __future__ import annotations
 
@@ -44,17 +45,14 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=500_000)
     ap.add_argument("--reads", type=int, default=1_000_000)
     ap.add_argument("--genome", type=int, default=4_000_000)
-    ap.add_argument("--out", default="/tmp/leon_paired")
-    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--out", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".bench_data", "paired"))
     a = ap.parse_args()
 
-    import jax
+    from leon_tpu.utils import compile_cache
 
-    if a.cpu:
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    compile_cache.enable()
 
     import gen_realistic
 
@@ -122,20 +120,6 @@ def main() -> int:
     }
     print(json.dumps(results["longtail"]), flush=True)
 
-    # merge into BASELINE_RESULTS.json
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    br = os.path.join(root, "BASELINE_RESULTS.json")
-    data = []
-    if os.path.exists(br):
-        with open(br) as f:
-            data = json.load(f)
-    # the file is a list of config rows; replace same-config rows
-    for name, row in results.items():
-        row = {"config": name, **row}
-        data = [r for r in data if r.get("config") != name]
-        data.append(row)
-    with open(br, "w") as f:
-        json.dump(data, f, indent=1)
     return 0 if (ok and ok2) else 1
 
 

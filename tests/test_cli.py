@@ -8,7 +8,8 @@ import sys
 import numpy as np
 import pytest
 
-ENV = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="/root/repo")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENV = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
 
 
 def run_cli(*args, timeout=300):

@@ -15,10 +15,8 @@ from leon_tpu.config import LeonConfig
 WORKER = r"""
 import os, sys, pickle
 os.environ["JAX_PLATFORMS"] = "cpu"
-import jax
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from leon_tpu.utils import compile_cache
+compile_cache.enable()
 pid = int(sys.argv[1]); nproc = int(sys.argv[2]); port = sys.argv[3]
 src = sys.argv[4]; out = sys.argv[5]
 from leon_tpu.parallel import distributed
@@ -62,7 +60,7 @@ def _run_two_process(src, out, port):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env.pop("XLA_FLAGS", None)
-    env["PYTHONPATH"] = "/root/repo"
+    env["PYTHONPATH"] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     procs = [
         subprocess.Popen(
             [sys.executable, "-c", WORKER, str(p), "2", port, src, out],

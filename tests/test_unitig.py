@@ -1,7 +1,7 @@
 """UNITIGS section tests (FORMAT.md §4a, format v4).
 
 The solid k-mer set is stored as unitigs and the decoder rebuilds the
-encoder's bit-identical Bloom filter — the TPU-side replacement for the
+encoder's bit-identical Bloom filter — the replacement for the
 reference's serialized filter ([R] Leon.cpp executeCompression writes
 the bitset whole; SURVEY.md §3.2 step 3/§3.3 step 1).
 """
