@@ -17,8 +17,9 @@ throughput estimate recorded in BASELINE.md (the snapshot publishes no
 numbers, /root/reference/README.md has none; the 2015 paper's E.coli runs
 land in this range on one core).
 
-Exits non-zero, without a result line, when JAX finds no GPU or any round
-trip fails. Inputs and outputs live in <repo>/.bench_data (git-ignored).
+Exits non-zero, without a result line, when JAX finds no GPU, the native
+library does not build, or any round trip fails. The card's name and
+power limit go to stderr, beside the per-run numbers. Inputs and outputs live in <repo>/.bench_data (git-ignored).
 """
 
 from __future__ import annotations
@@ -121,6 +122,7 @@ def main() -> int:
     from leon_tpu.utils import compile_cache, devinfo
 
     devs = devinfo.require_gpu()
+    devinfo.require_native()
     card = devinfo.card()
     compile_cache.enable()
     os.makedirs(WORKDIR, exist_ok=True)
@@ -138,7 +140,7 @@ def main() -> int:
         "peak_bytes_in_use": int(devs[0].memory_stats()["peak_bytes_in_use"]),
     }), file=sys.stderr)
     reads_per_s = main_res["compress_reads_per_s"]["median"]
-    print(card)
+    print(card, file=sys.stderr)
     print(json.dumps({
         "metric": "compress_reads_per_s_per_chip",
         "value": round(reads_per_s, 1),

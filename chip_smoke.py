@@ -38,7 +38,6 @@ READ_LEN = 100
 ECOLI_GENOME = 4_641_652      # E. coli K-12 MG1655 chromosome
 MAIN_READS = 2_000_000        # ~43x coverage
 K63_READS = 500_000
-MULTI_READS = 200_000         # --multi-gpu input (same generator, seed 9)
 SEED = 7
 SLAB_LANES = 65536            # one full walk chunk / count-slab chunk width
 WORKER_TIMEOUT_S = 600        # --multi-gpu: 4-process compress deadline
@@ -290,9 +289,8 @@ def single_gpu(args) -> None:
 
     device_facts()
     log(f"compile cache: {compile_cache.enable()}")
-    lib = native.get_lib()
-    log(f"native library loaded: {lib is not None}")
-    check(lib is not None, "native library built and loaded")
+    log(f"native library loaded: {native.get_lib() is not None}")
+    devinfo.require_native()
     cfg = LeonConfig(verbose=0).resolved()
     log(f"resolved: batch_reads {cfg.batch_reads}, "
         f"count_spill_rows {cfg.count_spill_rows}")
@@ -359,17 +357,18 @@ def dist_worker(pid: int, nproc: int, port: int, src: str, out: str) -> None:
                                           cfg=LeonConfig(lossless=True, verbose=0))
     import jax
 
-    log(f"worker {pid}: {st.get('output_bytes')} B, "
+    log(f"worker {pid}: {st['n_blocks_local']} of {st['n_blocks']} blocks, "
+        f"{st['time_total_s']} s, archive {st.get('output_bytes')} B, "
+        f"traffic {json.dumps(st['traffic_bytes'])}, "
         f"peak_bytes_in_use {peak_bytes(jax.local_devices()[0])}")
 
 
 def multi_gpu(args, n: int = 4) -> None:
-    from leon_tpu import native
     from leon_tpu.utils import devinfo
 
     log(f"card:\n{devinfo.card()}")
     # build the native library once, before the workers import it
-    check(native.get_lib() is not None, "native library built and loaded")
+    devinfo.require_native()
     src = make_input(DATA, args.reads, ECOLI_GENOME, SEED + 2)
     log(f"input: {src} ({os.path.getsize(src)} B)")
 
@@ -463,9 +462,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multi-gpu", action="store_true",
                     help="four cards: the multi-process and mesh phases only")
-    ap.add_argument("--reads", type=int, default=None,
-                    help=f"reads in the main input (default {MAIN_READS}; "
-                    f"{MULTI_READS} with --multi-gpu)")
+    ap.add_argument("--reads", type=int, default=MAIN_READS,
+                    help=f"reads in the main input (default {MAIN_READS})")
     ap.add_argument("--dist-worker", nargs=5, metavar=("PID", "NPROC", "PORT",
                                                        "SRC", "OUT"),
                     help=argparse.SUPPRESS)
@@ -474,10 +472,8 @@ def main() -> int:
         pid, nproc, port, src, out = args.dist_worker
         dist_worker(int(pid), int(nproc), int(port), src, out)
     elif args.multi_gpu:
-        args.reads = args.reads or MULTI_READS
         multi_gpu(args)
     else:
-        args.reads = args.reads or MAIN_READS
         single_gpu(args)
     return 0
 

@@ -5,7 +5,8 @@ rebuild; compilation happens once per source version (~1 s). Several processes
 may build at once (multi-process runs): each compiles to its own temp
 file and renames it into place atomically. If no toolchain is available
 the callers degrade (rANS framing falls back to zlib), so entry points that
-measure or check (chip_smoke.py) require get_lib() to succeed.
+measure or check (chip_smoke.py, bench.py) require it to load
+(utils/devinfo.require_native).
 """
 
 from __future__ import annotations

@@ -579,8 +579,7 @@ def compress_distributed(input_path: str, output_path: Optional[str] = None,
     uniq, cnts = counter.distinct_run()
     lossy = qual_mode == container.QUAL_LOSSY
     unitig_payload = None
-    unitig_infl = None
-    solid_enum = None  # p0's DICT enumeration (sorted distinct solid set)
+    solid_src = None  # DICT enumeration source (pipeline.finish_unitig_build)
     if nproc > 1:
         from leon_tpu.ops import bloom as _bloom
 
@@ -590,8 +589,7 @@ def compress_distributed(input_path: str, output_path: Optional[str] = None,
         bitset_j = jnp.asarray(
             np.pad(bitset, (0, _bloom.alloc_words(n_words) - n_words))
         )
-        if (cfg.unitig_sections and n_solid > 0
-                and n_solid <= cfg.unitig_max_kmers):
+        if pipeline.unitig_eligible(n_solid, cfg):
             # the solid set gathers to p0 (range order == global sorted
             # order) and ONLY p0 builds/decides — the decision rule and
             # payload bytes are the single-process ones (host builder is
@@ -601,16 +599,11 @@ def compress_distributed(input_path: str, output_path: Optional[str] = None,
             sp = _gather_solid_to_zero(solid_mine, counts_mine,
                                        output_path, pid, nproc)
             if pid == 0 and sp is not None:
-                from leon_tpu.ops import unitig as _unitig
-
-                try:
-                    p = _unitig.build_np_payload(
-                        sp[0], sp[1], cutoff, k, int(hist.sum()))
-                except Exception:
-                    p = None
-                if p is not None and len(p) < 4 * n_words:
-                    unitig_payload = p
-                    solid_enum = sp[0]
+                unitig_payload, solid_src = pipeline.finish_unitig_build(
+                    pipeline.start_unitig_build(
+                        (None, None, int(hist.sum()), sp), n_solid, cutoff,
+                        k, cfg),
+                    n_words)
     else:
         merged = count.DeviceCounter(
             k, slab_kmers=cfg.count_slab_kmers,
@@ -624,35 +617,10 @@ def compress_distributed(input_path: str, output_path: Optional[str] = None,
             device_max=cfg.unitig_device_max_kmers,
             unitig_max=cfg.unitig_max_kmers if cfg.unitig_sections else 0,
         )
-        if (cfg.unitig_sections and solidset is not None and n_solid > 0
-                and n_solid <= cfg.unitig_max_kmers):  # solid-count gate
-            try:
-                from leon_tpu.ops import unitig as _unitig
-
-                if n_solid > cfg.unitig_device_max_kmers:
-                    # compile-cliff fallback: byte-identical host builder
-                    hp = solidset[3]
-                    if hp is None and solidset[0] is not None:
-                        _w = np.asarray(solidset[0])
-                        _c = np.asarray(solidset[1])
-                        _m = _c >= cutoff
-                        hp = (np.ascontiguousarray(_w[_m]), _c[_m])
-                    if hp is not None:
-                        hs, hc = hp
-                        p = _unitig.build_np_payload(hs, hc, cutoff, k,
-                                                     solidset[2])
-                        if p is not None and len(p) < 4 * n_words:
-                            unitig_payload = p
-                else:
-                    infl = _unitig.dispatch_build(
-                        solidset[0], solidset[1], cutoff, k, solidset[2],
-                        n_solid=n_solid,
-                    )
-                    unitig_payload = pipeline._resolve_unitigs(infl, n_words)
-                    unitig_infl = infl if unitig_payload is not None else None
-            except Exception:
-                unitig_payload = None
-                unitig_infl = None
+        # the single-process section decision; a failure raises
+        unitig_payload, solid_src = pipeline.finish_unitig_build(
+            pipeline.start_unitig_build(solidset, n_solid, cutoff, k, cfg),
+            n_words)
         # device bitset is padded to the alloc grid; container stores the
         # exact n_words prefix
         bitset = np.asarray(bitset_j)[:n_words]
@@ -766,7 +734,8 @@ def compress_distributed(input_path: str, output_path: Optional[str] = None,
 
     stats = {
         "input": input_path, "output": output_path,
-        "n_reads": n_reads, "n_anchored_local": n_anchored,
+        "n_reads": n_reads, "n_blocks": n_blocks,
+        "n_blocks_local": len(encoders), "n_anchored_local": n_anchored,
         "n_solid_kmers": n_solid, "abundance": cutoff,
         "process": pid, "n_processes": nproc,
         "parse_sharded": shard_index is not None,
@@ -786,14 +755,13 @@ def compress_distributed(input_path: str, output_path: Optional[str] = None,
 
             bloom_sect, is_uni = _frames.frame(unitig_payload), True
             if len(adict):
-                if solid_enum is not None:
-                    # sharded path: the gathered range-ordered solid set
-                    # IS the sorted distinct enumeration (FORMAT.md §4a)
-                    solid_sorted = solid_enum
-                elif unitig_infl is not None:
-                    solid_sorted = _unitig.solid_run_host(unitig_infl)
+                # the build's sorted solid rows (sharded path: the
+                # gathered range-ordered set) ARE the sorted distinct
+                # enumeration (FORMAT.md §4a)
+                if solid_src[0] == "infl":
+                    solid_sorted = _unitig.solid_run_host(solid_src[1])
                 else:
-                    solid_sorted = _unitig.solid_kmers_sorted(unitig_payload, k)
+                    solid_sorted = solid_src[1]
         else:
             bloom_sect, is_uni = pipeline.frame_bloom(bitset), False
         c = container.Container(

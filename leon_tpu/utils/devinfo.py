@@ -1,6 +1,7 @@
 """The device a measurement runs on: found, named, or refused.
 
-A measurement that finds no GPU stops; it never carries on on the CPU.
+A measurement that finds no GPU, or no native library, stops; it never
+carries on on the CPU or with another codec.
 """
 
 from __future__ import annotations
@@ -29,6 +30,18 @@ def require_gpu(count: int = 1) -> list:
             f"need {count} GPU(s); JAX backend is {jax.default_backend()!r} "
             f"with {len(devs)} GPU(s)")
     return devs
+
+
+def require_native():
+    """The native host library (rANS framing, unitig builder); exits
+    non-zero when it did not build or load. Without it the framing falls
+    back to zlib and the archive changes, so a measurement stops."""
+    from leon_tpu import native
+
+    lib = native.get_lib()
+    if lib is None:
+        raise SystemExit("native library did not build or load")
+    return lib
 
 
 def device_json(devs: list) -> dict:

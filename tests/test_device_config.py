@@ -146,19 +146,50 @@ def test_device_count_failure_propagates(tmp_path, rng, monkeypatch):
                           cfg=LeonConfig(batch_reads=64, reads_per_block=64))
 
 
-def test_unitig_build_failure_propagates(tmp_path, rng, monkeypatch):
-    """A failed host unitig build raises from compress; it never turns
-    into a BLOOM section."""
+def _compress_single(src, out, cfg):
+    pipeline.compress(src, out, cfg=cfg)
+
+
+def _compress_distributed(src, out, cfg):
+    from leon_tpu.parallel import distributed
+
+    distributed.compress_distributed(src, out, cfg=cfg)
+
+
+@pytest.mark.parametrize("driver", [_compress_single, _compress_distributed],
+                         ids=["pipeline", "distributed"])
+@pytest.mark.parametrize("builder,device_max", [
+    ("build_np_payload", 0), ("drain_build", 1 << 30)], ids=["host", "device"])
+def test_unitig_build_failure_propagates(tmp_path, rng, monkeypatch, driver,
+                                         builder, device_max):
+    """A failed unitig build, on the host thread or in the device drain,
+    raises from either compress driver; it never turns into a BLOOM
+    section."""
     from leon_tpu.ops import unitig
 
     def boom(*a, **kw):
         raise RuntimeError("unitig build failed")
 
-    monkeypatch.setattr(unitig, "build_np_payload", boom)
+    monkeypatch.setattr(unitig, builder, boom)
     src = _fasta(tmp_path / "u.fasta", rng, n=120)
+    cfg = LeonConfig(batch_reads=64, reads_per_block=64,
+                     unitig_device_max_kmers=device_max)
     with pytest.raises(RuntimeError, match="unitig build failed"):
-        pipeline.compress(src, str(tmp_path / "u.leon"),
-                          cfg=LeonConfig(batch_reads=64, reads_per_block=64))
+        driver(src, str(tmp_path / "u.leon"), cfg)
+
+
+@pytest.mark.parametrize("device_max", [0, 1 << 30], ids=["host", "device"])
+def test_unitig_builders_write_one_archive(tmp_path, rng, device_max):
+    """Both drivers take the section decision from one helper: with the
+    host or the device builder they write the same UNITIGS archive."""
+    src = _fasta(tmp_path / "s.fasta", rng)
+    cfg = LeonConfig(batch_reads=64, reads_per_block=128,
+                     unitig_device_max_kmers=device_max)
+    a, b = str(tmp_path / "a.leon"), str(tmp_path / "b.leon")
+    st = pipeline.compress(src, a, cfg=cfg)
+    assert st["unitig_bytes"] > 0
+    _compress_distributed(src, b, cfg)
+    assert open(a, "rb").read() == open(b, "rb").read()
 
 
 def test_decode_failure_joins_writer(tmp_path, rng, monkeypatch):
